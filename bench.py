@@ -6,9 +6,7 @@ banded ~1 kb pairs — printed as ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
 
 `--all` measures every BASELINE.md config and prints one JSON report
-(also written to BENCH_ALL.json); `--config NAME` runs a single config;
-`--update-readme` regenerates the README.md performance table from the
-measured report.
+(also written to BENCH_ALL.json); `--config NAME` runs a single config.
 
 vs_baseline compares cell-throughput metrics against the measured
 single-core C cell-update rate (native/bench_cells.c, the reference's
@@ -150,8 +148,7 @@ def bench_headline(baseline: float) -> dict:
                                      width=W)
         return jnp.sum(out["post_match"])
 
-    # force execution + host transfer (block_until_ready alone can be lazy
-    # on experimental remote backends); amortize the host round-trip by
+    # force execution + host transfer; amortize the host round-trip by
     # forcing only the last of a pipelined run of reps
     float(run())  # compile + warm + sync
     reps = 10
@@ -163,13 +160,9 @@ def bench_headline(baseline: float) -> dict:
     cells_per_sec = cells / dt
 
     # companion: the dense-anchor (cigar-band) regime of realign/EM — one
-    # anchor per matched base gives a ~22-slot frame, where the wavefront
-    # kernel packs K = 128//(W+1) pairs per 128-lane row (the headline's
-    # 50 bp anchor spacing interpolates to an 85-slot frame, too wide to
-    # pack). Reported alongside so the lane-packing win is measured on
-    # the workload shape that actually exhibits it.
+    # anchor per matched base gives a narrow frame (the headline's 50 bp
+    # anchor spacing interpolates to a wider one)
     from cpecan_tpu.align.pairwise import _width_bucket
-    from cpecan_tpu.ops import fb_wavefront
 
     rng2 = np.random.default_rng(1)
     sxs, offs, wids = [], [], []
@@ -213,7 +206,6 @@ def bench_headline(baseline: float) -> dict:
         "dense_band_cells_per_sec": round(dense_cells / dt_d),
         "dense_band_vs_baseline": round(dense_cells / dt_d / baseline, 2),
         "dense_band_width": Wd,
-        "dense_band_pack_factor": fb_wavefront.pack_factor(Wd),
     }
 
 
@@ -634,100 +626,12 @@ CONFIGS = {
     "msa_100x1kb": bench_msa_100x1kb,
 }
 
-_README_BEGIN = "<!-- bench:begin -->"
-_README_END = "<!-- bench:end -->"
-
-
-_CONFIG_LABELS = {
-    "headline": "DP cells/s/chip, B=256 banded 1 kb pairs (headline)",
-    "realign_1kb": "realign CLI, one 1 kb record end to end",
-    "read_pairs_1kb": "1024 x 1 kb full-band pairs, batched decode",
-    "anchored_50kb": "50 kb anchored pair end to end",
-    "long_500kb": "500 kb anchored pair end to end (ENCODE-scale)",
-    "em": "EM iteration, 64 x 1 kb corpus",
-    "em_scaling": "EM sharded-dispatch overhead, 8-device virtual mesh",
-    "msa": "progressive MSA, 20 x 500 bp",
-    "msa_100x1kb": "progressive MSA, 100 x 1 kb (BASELINE #5 scale)",
-}
-
-
-def update_readme(report: dict) -> None:
-    """Regenerate the README performance table between the bench markers
-    from a measured BENCH_ALL report. vs_baseline for end-to-end configs
-    is derived from the measured single-core C cell rate on the same
-    in-band cells (the reference publishes no numbers, BASELINE.md)."""
-    backend = report["backend"]
-
-    def fmt_val(v, digits=2):
-        if v is None:
-            return "—"
-        if v >= 1e6:
-            return f"{v / 1e6:.0f}M"
-        return f"{v:.{digits}f}"
-
-    rows = []
-    for c in report["configs"]:
-        label = _CONFIG_LABELS.get(c["name"], c["name"])
-        extras = []
-        if c.get("dp_cells_per_sec"):
-            extras.append(f"{fmt_val(c['dp_cells_per_sec'])} cells/s")
-        if c.get("sensitivity") is not None:
-            extras.append(f"sens {c['sensitivity']} / spec "
-                          f"{c['specificity']}")
-        if c.get("posterior_parity_max_abs") is not None:
-            extras.append(
-                f"posterior parity {c['posterior_parity_max_abs']:g}")
-        if "points" in c:
-            pts = ", ".join(
-                f"{nd} dev: {p['iters_per_sec']:.2f} iters/s"
-                for nd, p in sorted(c["points"].items())
-                if "iters_per_sec" in p)
-            extras.append(pts)
-        detail = f" ({'; '.join(extras)})" if extras else ""
-        vs = c.get("vs_baseline")
-        vs_s = f"{vs}x" if vs is not None else "—"
-        rows.append(f"| {label} | {fmt_val(c['value'], 3)} "
-                    f"{c['unit']}{detail} | {vs_s} |")
-
-    # provenance stamp so a stale table is self-evident (the table only
-    # regenerates when `bench.py --all --update-readme` actually ran)
-    stamp = ""
-    if report.get("date") or report.get("commit"):
-        stamp = (f" measured {report.get('date', '?')} at commit "
-                 f"`{report.get('commit', '?')}`;")
-    lines = [
-        _README_BEGIN,
-        f"Measured on `{backend}` (`python bench.py --all`,{stamp} "
-        f"C baseline {report['c_baseline_cells_per_sec'] / 1e6:.1f}M cells/s "
-        "single-core):",
-        "",
-        "| BASELINE.md config | result | vs single-core C |",
-        "|---|---|---|",
-        *rows,
-        _README_END,
-    ]
-    path = os.path.join(HERE, "README.md")
-    with open(path) as fh:
-        text = fh.read()
-    if _README_BEGIN in text:
-        head, rest = text.split(_README_BEGIN, 1)
-        _, tail = rest.split(_README_END, 1)
-        text = head + "\n".join(lines) + tail
-    else:
-        text = text.rstrip() + "\n\n" + "\n".join(lines) + "\n"
-    with open(path, "w") as fh:
-        fh.write(text)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--all", action="store_true",
                     help="run every BASELINE.md config; one-line JSON report")
     ap.add_argument("--config", choices=sorted(CONFIGS),
                     help="run a single named config")
-    ap.add_argument("--update-readme", action="store_true",
-                    help="regenerate the README performance table "
-                         "(implies --all unless --config)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny problem sizes (fast correctness check of the "
                          "harness itself; numbers are meaningless)")
@@ -742,7 +646,7 @@ def main():
 
     baseline = measure_c_baseline()
 
-    if not (args.all or args.config or args.update_readme):
+    if not (args.all or args.config):
         print(json.dumps(bench_headline(baseline)))
         return
 
@@ -805,8 +709,6 @@ def main():
         with open(os.path.join(HERE, "BENCH_ALL.json"), "w") as fh:
             json.dump(report, fh, indent=2)
             fh.write("\n")
-    if args.update_readme:
-        update_readme(report)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Top-level pairwise alignment APIs.
 
-TPU-native equivalents of the reference core public functions
+Equivalents of the reference core public functions
 (impl/pairwiseAligner.c:1431-1513):
 
   get_aligned_pairs(_using_anchors)       -> posterior match pairs
@@ -39,22 +39,15 @@ def _bucket(n: int, minimum: int = 8) -> int:
     return b
 
 
-# Width buckets below 64 sit one short of a lane-segment size so the
-# wavefront kernel packs K = 128//(W+1) pairs per 128-lane row at ~96%
-# segment utilization (ops/fb_wavefront.py pack_factor): 41 -> K=3 is the
-# default-expansion band (2*20+1), measured 1040 vs 428 M cells/s on the
-# headline batch against the old pow2-to-128 ladder.
-_PACK_WIDTHS = (8, 15, 24, 31, 41, 63)
-
-
 def _width_bucket(w: int) -> int:
-    # packing-friendly buckets below 64, then pow2, then multiples of 128
-    for b in _PACK_WIDTHS:
-        if w <= b:
-            return b
-    if w <= 128:
-        return 128
-    return ((w + 127) // 128) * 128
+    """Band width bucket: the GPU kernels' block width (the next power of
+    two) up to fb_wavefront.MAX_WIDTH, multiples of it beyond (those
+    bands run on the scan engine)."""
+    from cpecan_tpu.ops.fb_wavefront import MAX_WIDTH, block_width
+
+    if w <= MAX_WIDTH:
+        return block_width(w)
+    return -(-w // MAX_WIDTH) * MAX_WIDTH
 
 
 def _run_chunk(sm: StateMachine, seq_x: str, seq_y: str, anchors,

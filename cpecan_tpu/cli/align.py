@@ -22,6 +22,7 @@ from cpecan_tpu.io import cigar as cigar_io
 from cpecan_tpu.io.fasta import fasta_read_file
 from cpecan_tpu.msa.aligner import filter_pairwise_alignment_to_make_pairs_ordered
 from cpecan_tpu.ops import pairs as pairs_mod
+from cpecan_tpu.utils.jaxcache import enable_compilation_cache
 
 
 def read_fasta_by_first_token(path: str) -> dict:
@@ -42,6 +43,7 @@ def main(argv=None, stdout=None) -> int:
                     help="pairs per cross-pair device batch")
     args = ap.parse_args(argv)
     stdout = stdout or sys.stdout
+    enable_compilation_cache()
 
     sm = (state_machine_from_hmm(Hmm.load(args.loadHmm))
           if args.loadHmm else state_machine5())

@@ -14,6 +14,7 @@ from cpecan_tpu.em import em as em_mod
 from cpecan_tpu.io import cigar as cigar_io
 from cpecan_tpu.cli.realign import read_sequences
 from cpecan_tpu.parallel.mesh import data_mesh, initialize_distributed
+from cpecan_tpu.utils.jaxcache import enable_compilation_cache
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -87,6 +88,7 @@ def parse_options_to_realign(args) -> None:
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    enable_compilation_cache()
     args.constraintDiagonalTrim = 0
     parse_options_to_realign(args)
     initialize_distributed(coordinator_address=args.coordinator,

@@ -27,6 +27,7 @@ from cpecan_tpu.ops import pairs as pairs_mod
 from cpecan_tpu.utils import metrics
 from cpecan_tpu.utils.logmath import PAIR_ALIGNMENT_PROB_1
 from cpecan_tpu.utils.symbols import reverse_complement
+from cpecan_tpu.utils.jaxcache import enable_compilation_cache
 
 
 def read_sequences(fasta_paths) -> dict:
@@ -210,6 +211,7 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, stdin=None, stdout=None) -> int:
     args = make_parser().parse_args(argv)
+    enable_compilation_cache()
     stdin = stdin or sys.stdin
     stdout = stdout or sys.stdout
 

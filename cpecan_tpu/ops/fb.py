@@ -1,6 +1,6 @@
 """Banded pair-HMM forward-backward on anti-diagonal wavefronts.
 
-TPU-native re-design of the reference banded FB engine
+A re-design of the reference banded FB engine for accelerators
 (impl/pairwiseAligner.c:756-949). Design (see SURVEY.md section 7):
 
  * **Scaled-probability space.** The reference computes in log space with
@@ -18,8 +18,7 @@ TPU-native re-design of the reference banded FB engine
    the band's left x edge. x changes by at most 1 per diagonal, so xoff
    advances by delta in {0,1} per step and every neighbor access is a
    2-3 way select between *static* shifts — no data-dependent gathers in
-   the hot loop (vmapped dynamic-slice lowers to TPU gather, measured
-   10-20x slower than the arithmetic).
+   the hot loop.
 
  * **Lean scans, vectorized reductions.** The sequential scans compute
    only the forward/backward value recursions and emit all diagonals
@@ -51,6 +50,12 @@ _SENTINEL = 5
 
 _UNROLL = 4
 
+# Apply the per-row max-rescale only every NORM_EVERY diagonals (global
+# index k % NORM_EVERY == NORM_EVERY - 1); fp32 absorbs the scale drift in
+# between. The GPU kernels (ops/fb_wavefront.py) follow the same schedule,
+# so the engines' F/mf streams stay elementwise comparable.
+NORM_EVERY = 4
+
 
 def _shift_right(arr, fill=0.0):
     """out[..., j] = arr[..., j-1]."""
@@ -76,76 +81,6 @@ def _select_shift(arr, amount):
         jnp.where(amount == 1, _shift_left(arr), _shift_right(arr)))
 
 
-def _symbol_windows_matmul(sx_pad, sy_pad, xoff, delta, LY, W, ks=None,
-                           pad_off=None):
-    """Per-diagonal symbol windows via one-hot MXU matmuls — no
-    sequential scan, no gather.
-
-    Same contract as _symbol_windows_scan (which it replaces on the hot
-    batch path: the 2k-step scan costs ~8 us/row of pure loop latency on
-    TPU, ~1/3 of the whole engine).  The distinct windows of a padded
-    sequence are built once with W+1 STATIC slices (a (n, W+1) sliding
-    table), and each diagonal's row is selected by a one-hot matmul of
-    its origin index — symbols are small ints, exact in the int8/bf16
-    matmul, and the MXU eats the (P+1, n) x (n, W+1) contraction in
-    microseconds.  Origins are always in range by construction (the
-    sentinel padding bounds them), so out-of-band rows read sentinels
-    exactly as the scan did."""
-    P = xoff.shape[0] - 1
-    if pad_off is None:
-        pad_off = W + 1
-    if ks is None:
-        ks = jnp.arange(P + 1, dtype=jnp.int32)
-    del delta  # shift structure not needed in this formulation
-    ox = xoff - 1 + pad_off
-    oy = LY - ks + xoff - 1 + pad_off
-
-    def expand(orig, seq_pad):
-        n = seq_pad.shape[0] - W
-        win = jnp.stack([seq_pad[j:j + n] for j in range(W + 1)], axis=1)
-        oh = (orig[:, None]
-              == jnp.arange(n, dtype=jnp.int32)[None, :]).astype(jnp.bfloat16)
-        out = jax.lax.dot_general(
-            oh, win.astype(jnp.bfloat16), (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        return out.astype(jnp.int8)
-
-    return expand(ox, sx_pad), expand(oy, sy_pad)
-
-
-def _symbol_windows_slab(sx_pad, sy_pad, xoff, delta, LY, W, ks, pad_off,
-                         K_rows):
-    """Interior-window variant of _symbol_windows_matmul for the
-    streaming/segment engines: rows [ks[0], ks[0]+K) of a LONG pair.
-
-    The full-pair one-hot would be (K, len(seq)) — instead one dynamic
-    slab per side bounds it: within K rows the x-origin advances <= K
-    (monotone 0/1 steps) and the y-origin retreats <= K, so a
-    (K + W + 1)-long slab anchored at the first row's origin covers the
-    whole window and the one-hot is only (K, K + 1).  Callers must pad
-    the sequences with at least K + W + 1 sentinels on BOTH sides
-    (pad_off gives the leading pad) so the slabs never clip.
-    Exact-equivalent to _symbol_windows_scan on the same rows."""
-    K = xoff.shape[0]
-    del delta
-    ox = xoff - 1 + pad_off
-    oy = LY - ks + xoff - 1 + pad_off
-
-    def expand(orig, seq_pad, base):
-        slab = jax.lax.dynamic_slice(seq_pad, (base,), (K_rows + W + 1,))
-        n = K_rows + 1
-        win = jnp.stack([slab[j:j + n] for j in range(W + 1)], axis=1)
-        loc = orig - base
-        oh = (loc[:, None]
-              == jnp.arange(n, dtype=jnp.int32)[None, :]).astype(jnp.bfloat16)
-        out = jax.lax.dot_general(
-            oh, win.astype(jnp.bfloat16), (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        return out.astype(jnp.int8)
-
-    return expand(ox, sx_pad, ox[0]), expand(oy, sy_pad, oy[0] - K_rows)
-
-
 def _symbol_windows_scan(sx_pad, sy_pad, xoff, delta, LY, W, ks=None,
                          pad_off=None):
     """Per-diagonal symbol windows via a feather-weight int8 scan.
@@ -155,8 +90,7 @@ def _symbol_windows_scan(sx_pad, sy_pad, xoff, delta, LY, W, ks=None,
     retreats by delta-1 — so each row is the previous row shifted by a
     constant with one new element appended/prepended. The only gathers
     are the per-diagonal single elements (P+1 each), everything else is
-    selects — profiling showed bulk window gathers dominated the whole
-    engine (vmapped slice-gather lowers terribly on TPU).
+    selects.
 
     ks: absolute diagonal indices of the rows (default arange) — lets the
     streaming engine compute windows for an interior diagonal range.
@@ -235,8 +169,7 @@ def _one_hot(sym, n=5):
 
 def _lookup1(sym, table5):
     """Elementwise 5-entry table lookup via a fused select chain (exact
-    f32; the one-hot matmul formulation pads the K=5 contraction onto the
-    MXU and is ~100x more expensive). Sentinel symbols map to 0."""
+    f32). Sentinel symbols map to 0."""
     out = jnp.zeros(sym.shape, jnp.float32)
     for i in range(5):
         out = jnp.where(sym == i, table5[i], out)
@@ -269,9 +202,7 @@ def _fwd_step(prob, width):
     are (do_norm_k, d_k, d_{k-1}, jlo_k, jhi_k, ex_k, ey_k, em_k).
 
     do_norm_k: apply the max-rescale on this row (mf_k = 0 on skipped
-    rows).  The schedule is norm_flags() of the global diagonal index —
-    shared with the Pallas kernels (fb_wavefront.NORM_EVERY) so the
-    engines' F/mf streams stay elementwise comparable."""
+    rows).  The schedule is norm_flags() of the global diagonal index."""
     S = prob["start"].shape[0]
     t_cat = prob["t"].reshape(3 * S, S)  # [x; m; y]
     js = jnp.arange(width, dtype=jnp.int32)
@@ -312,11 +243,8 @@ def initial_forward_carry(prob, ragged_left, width):
 
 def norm_flags(ks):
     """Per-row max-rescale schedule from global diagonal indices: norm
-    iff k % NORM_EVERY == NORM_EVERY - 1 (see fb_wavefront.NORM_EVERY —
-    the kernels apply the identical schedule)."""
-    from cpecan_tpu.ops import fb_wavefront as _wf
-
-    return (ks % _wf.NORM_EVERY) == (_wf.NORM_EVERY - 1)
+    iff k % NORM_EVERY == NORM_EVERY - 1."""
+    return (ks % NORM_EVERY) == (NORM_EVERY - 1)
 
 
 def forward_window(prob, e_x, e_y, e_m, delta, d_km1, jlo, jhi, carry, width,

@@ -1,7 +1,7 @@
 """Checkpointed streaming forward-backward for long pairs.
 
 Bounds live memory to O(band * window) for arbitrarily long banded
-pairs — the TPU-native re-design of the reference's traceback-window
+pairs — a re-design of the reference's traceback-window
 machinery (getPosteriorProbsWithBanding, impl/pairwiseAligner.c:756-877,
 window logic :792-861), honoring `minDiagsBetweenTraceBack` /
 `traceBackDiagonals` (PairwiseAlignmentParameters, :1334-1348).
@@ -47,25 +47,40 @@ import jax.numpy as jnp
 import numpy as np
 
 from cpecan_tpu.ops import fb as _fb
+from cpecan_tpu.ops.fb_wavefront import block_width
 
-# Streaming activates when the two-pass engine's resident tensors for one
-# pair (F + B + the emission/mask streams, ~3 copies of (P+1, S, W) fp32)
-# would exceed this budget.
-_DEFAULT_BUDGET = 1 << 30
+# Working-set budget when the backend reports no memory limit (the CPU).
+_HOST_BUDGET = 1 << 30
 
-# Engine used by the most recent fb_pass_streaming call ("scan" or
-# "wavefront"), for tests/telemetry.
-LAST_ENGINE: str | None = None
+
+def device_budget_bytes(device=None) -> int:
+    """Working-set budget of one device launch: an eighth of what the
+    device (by default this process's first) lets JAX allocate
+    (memory_stats()["bytes_limit"]), or 1 GiB when the backend reports
+    no limit."""
+    device = device if device is not None else jax.local_devices()[0]
+    limit = (device.memory_stats() or {}).get("bytes_limit")
+    return int(limit) // 8 if limit else _HOST_BUDGET
 
 
 def stream_budget_bytes() -> int:
-    return int(os.environ.get("CPECAN_TPU_STREAM_BUDGET", _DEFAULT_BUDGET))
+    """device_budget_bytes(), unless CPECAN_TPU_STREAM_BUDGET sets it."""
+    env = os.environ.get("CPECAN_TPU_STREAM_BUDGET")
+    return int(env) if env else device_budget_bytes()
+
+
+def resident_bytes(diagonal_number: int, width: int,
+                   state_number: int = 5) -> int:
+    """Two-pass bytes for one pair: ~3 (P+1, S, W) fp32 tensors, W
+    padded to the kernels' block width."""
+    return 3 * (diagonal_number + 1) * state_number * block_width(width) * 4
 
 
 def should_stream(diagonal_number: int, width: int, state_number: int = 5) -> bool:
-    rows = diagonal_number + 1
-    resident = 3 * rows * state_number * max(width, 128) * 4
-    return resident > stream_budget_bytes()
+    """Streaming activates when one pair's two-pass tensors would exceed
+    the budget."""
+    return (resident_bytes(diagonal_number, width, state_number)
+            > stream_budget_bytes())
 
 
 def window_rows(p) -> int:
@@ -220,20 +235,13 @@ def fb_pass_streaming(params, seq_x_codes, seq_y_codes,
                       offsets: np.ndarray, widths: np.ndarray,
                       lx: int, ly: int, ragged_left: bool,
                       ragged_right: bool, mode: str, width: int,
-                      window: int, threshold: float = 0.0,
-                      engine: str | None = None, burnin: int | None = None):
-    """Streaming banded FB for ONE long pair.
+                      window: int, threshold: float = 0.0):
+    """Streaming banded FB for ONE long pair (exact: same results as the
+    two-pass engine).
 
     seq_*_codes: int symbol arrays of the true lengths (no padding).
     offsets/widths: UNPADDED band tensors (length lx+ly+1).
     window: diagonals per checkpoint window (window_rows(p)).
-    engine: "scan" | "wavefront" | "parallel" | None. Auto picks, on a
-      TPU backend, the burn-in-parallel window engine
-      (ops/fb_parallel.py — approximate exactly the way the reference's
-      traceback seeding is, returns only post_entries/xoff/windows) for
-      posterior modes and the exact segmented Pallas engine
-      (ops/fb_segmented.py) for its other supported modes; the scan
-      engine otherwise. Env override: CPECAN_TPU_STREAM_ENGINE.
 
     Returns a dict:
       "log_fwd": float raw end-dot log at L (host f64 recombination adds
@@ -245,31 +253,6 @@ def fb_pass_streaming(params, seq_x_codes, seq_y_codes,
         concatenated; "xoff": the frame offsets for (k, j) -> (x, y);
       expectation: "trans" (S,S), "emis" (S,4,4) float64 counts.
     """
-    global LAST_ENGINE
-    if engine is None:
-        engine = os.environ.get("CPECAN_TPU_STREAM_ENGINE", "auto")
-    on_tpu = jax.default_backend() == "tpu"
-    if engine in ("auto", "parallel"):
-        from cpecan_tpu.ops import fb_parallel
-
-        if fb_parallel.supported(mode) and (engine == "parallel" or on_tpu):
-            LAST_ENGINE = "parallel"
-            return fb_parallel.fb_pass_parallel(
-                params, seq_x_codes, seq_y_codes, offsets, widths, lx, ly,
-                ragged_left, ragged_right, mode, width,
-                burnin=burnin if burnin else 96, threshold=threshold)
-    if engine not in ("scan", "parallel"):
-        from cpecan_tpu.ops import fb_segmented
-
-        if fb_segmented.supported(mode) and (
-                engine == "wavefront" or on_tpu):
-            LAST_ENGINE = "wavefront"
-            return fb_segmented.fb_pass_segmented(
-                params, seq_x_codes, seq_y_codes, offsets, widths, lx, ly,
-                ragged_left, ragged_right, mode, width, window,
-                threshold=threshold)
-    LAST_ENGINE = "scan"
-
     L = int(lx) + int(ly)
     if L == 0:
         raise ValueError("empty pair")

@@ -1,9 +1,10 @@
 """Device-mesh helpers.
 
 The framework scales data-parallel over a 1-D `data` mesh axis: read-pair
-batches sharded across chips, the HMM replicated, expectation count
-tensors reduced with XLA collectives over ICI (within a slice) and DCN
-(across slices). Multi-host launch uses jax.distributed; the same code
+batches sharded across devices, the HMM replicated, expectation count
+tensors reduced with XLA collectives (NCCL all-reduce between GPUs; the
+cards of one host are joined all to all, so a 1-D mesh needs no
+topology mapping). Multi-host launch uses jax.distributed; the same code
 path runs on a virtual CPU mesh (xla_force_host_platform_device_count)
 for testing — no mocks.
 """
@@ -30,14 +31,11 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     every host runs the same program on its shard of the corpus.
 
     On the CPU backend (tests, dev boxes) cross-process collectives need
-    the gloo transport; on TPU the XLA runtime rides ICI/DCN natively."""
+    the gloo transport; on GPUs XLA uses NCCL."""
     if num_processes is not None and num_processes > 1:
         platforms = jax.config.jax_platforms or ""
         if "cpu" in platforms:
-            try:
-                jax.config.update("jax_cpu_collectives_implementation", "gloo")
-            except Exception:
-                pass  # older/newer jax without the option
+            jax.config.update("jax_cpu_collectives_implementation", "gloo")
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,

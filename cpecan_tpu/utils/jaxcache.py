@@ -1,37 +1,49 @@
-"""Persistent XLA compilation cache setup.
+"""Persistent XLA compilation cache.
 
-The wavefront engine compiles one executable per (bucketed) shape; caching
-them on disk makes repeated CLI invocations and test runs start fast.
+The engines compile one executable per (bucketed) shape; caching them on
+disk makes repeated CLI invocations start fast. The cache directory is
+JAX_COMPILATION_CACHE_DIR when that is set (JAX reads it itself, and
+nothing here overrides it); otherwise the fixed directory `.jax_cache`
+at the root of the checkout. The path is part of the cache key, so it is
+never built from a temporary name, a pid or the time.
 
-The cache is enabled only for TPU backends: jaxlib 0.9.0's CPU backend
-aborts (SIGABRT/SIGSEGV in C++) while serializing or deserializing some
-large Pallas-interpret executables, which took down two full test runs.
-CPU processes (the test suite's virtual mesh) rely on the in-process
-cache instead.  Set CPECAN_TPU_CACHE_CPU=1 to force-enable on CPU.
+CPU processes (the test suite) keep the cache off unless the variable is
+set: jaxlib 0.9.0's CPU backend aborts while serializing or
+deserializing some large Pallas-interpret executables.
 """
 
 import os
 
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
-def enable_compilation_cache(path: str | None = None) -> None:
+
+def cache_dir() -> str:
+    """Where compiled executables are cached."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or REPO_CACHE_DIR
+
+
+def _configured_platform() -> str:
+    """First configured JAX platform, read WITHOUT initializing a backend
+    (this runs before jax.distributed.initialize in the CLIs)."""
     import jax
 
-    # Resolve the configured platform WITHOUT initializing the backend
-    # (this runs before jax.distributed.initialize in the CLIs).
-    try:
-        platforms = jax.config.jax_platforms or ""
-    except Exception:
-        platforms = ""
-    platforms = platforms or os.environ.get("JAX_PLATFORMS", "")
-    first = platforms.split(",")[0].strip().lower()
-    if first == "cpu" and not os.environ.get("CPECAN_TPU_CACHE_CPU"):
-        return
+    platforms = jax.config.jax_platforms or os.environ.get(
+        "JAX_PLATFORMS", "")
+    return platforms.split(",")[0].strip().lower()
 
-    path = path or os.environ.get(
-        "CPECAN_TPU_CACHE", os.path.expanduser("~/.cache/cpecan_tpu_xla"))
-    os.makedirs(path, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass  # older jax versions without the persistent cache
+
+def enable_compilation_cache() -> str | None:
+    """Turn the persistent cache on; returns its directory, or None when
+    it stays off (CPU without JAX_COMPILATION_CACHE_DIR)."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return cache_dir()
+    if _configured_platform() == "cpu":
+        return None
+    import jax
+
+    os.makedirs(REPO_CACHE_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", REPO_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    return REPO_CACHE_DIR

@@ -75,7 +75,7 @@ def jit_cache_entries() -> int:
         from cpecan_tpu.ops import fb, fb_batch, fb_streaming, fb_wavefront
 
         for fn in (fb._fb_pass_jit, fb_batch.fb_pass_batch_scan,
-                   fb_wavefront._fb_wavefront_jit,
+                   fb_wavefront._wavefront_jit,
                    fb_streaming._fwd_window_jit,
                    fb_streaming._bwd_window_jit,
                    batch_mod._count_above, batch_mod._compact_above):

@@ -5,7 +5,7 @@
 // Pareto-frontier DP, WeightGraph.merge_columns) — semantics of the
 // reference pairwiseAlignColumns / mergeColumns / progressive driver
 // (impl/multipleAligner.c:213-270, :304-556).  The host merge dominates
-// MSA wall-clock once pair posteriors come off the TPU in milliseconds;
+// MSA wall-clock once pair posteriors come off the device in milliseconds;
 // this runs the whole per-round merge loop natively and returns the
 // final union-find parent array.
 //

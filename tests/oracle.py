@@ -1,7 +1,7 @@
 """Naive full-matrix pair-HMM forward-backward oracle (float64 numpy).
 
 Independent re-implementation of the DP semantics, cell by cell, used to
-cross-check the TPU wavefront engine — the same verification pattern the
+cross-check the banded FB engines — the same verification pattern the
 reference uses (tests/pairwiseAlignerTest.c:242-324 builds an unbanded
 matrix; :733-802 is a naive MEA reimplementation).
 """

@@ -155,7 +155,7 @@ def test_long_repeat_rich_pair_accuracy():
 
     Scale: 120 kb in the default suite (CPU minutes); 500 kb when
     CPECAN_TPU_LONGTEST=1 (the bench long_500kb config covers the full
-    scale on TPU every round)."""
+    scale on the GPU)."""
     import os
     from cpecan_tpu.align.anchors import get_anchors
     from cpecan_tpu.align.pairwise import get_aligned_pairs_using_anchors

@@ -44,21 +44,21 @@ def test_batch_matches_sequential_posterior_match():
         _assert_same_pairs(pairs, ref)
 
 
-def test_batch_sharded_wavefront_matches_sequential(monkeypatch):
+def test_batch_sharded_wavefront_matches_sequential(request):
     """Posterior batches sharded over the 8-device mesh, running the
-    Pallas wavefront kernels per shard, must match the sequential API."""
+    fused kernels per shard (interpreted here), must match the
+    sequential API."""
     from cpecan_tpu.ops import fb_batch
     from cpecan_tpu.parallel.mesh import data_mesh
 
-    monkeypatch.setenv("CPECAN_TPU_ENGINE", "wavefront")
     jobs, p = _jobs(n_jobs=4, seed=7)
     sm = state_machine5()
-    mesh = data_mesh()
-    got = batch_mod.get_aligned_pairs_batch(sm, jobs, p, mesh=mesh)
+    refs = [get_aligned_pairs_using_anchors(sm, sx, sy, anchors, p, rl, rr)
+            for (sx, sy, anchors, rl, rr) in jobs]
+    request.getfixturevalue("interpreted_kernels")
+    got = batch_mod.get_aligned_pairs_batch(sm, jobs, p, mesh=data_mesh())
     assert fb_batch.LAST_ENGINE == "wavefront_sharded"
-    monkeypatch.delenv("CPECAN_TPU_ENGINE")
-    for (sx, sy, anchors, rl, rr), pairs in zip(jobs, got):
-        ref = get_aligned_pairs_using_anchors(sm, sx, sy, anchors, p, rl, rr)
+    for pairs, ref in zip(got, refs):
         _assert_same_pairs(pairs, ref)
 
 
@@ -94,7 +94,7 @@ def test_launch_splitting_matches_single_launch(monkeypatch):
         jobs.append((x, y, None, False, False))  # full band
 
     want = batch_mod.batch_posteriors(sm, jobs, p, mode="posterior_match")
-    monkeypatch.setattr(batch_mod, "_DENSE_BUDGET", 1 << 16)
+    monkeypatch.setattr(batch_mod, "device_budget_bytes", lambda: 1 << 16)
     got = batch_mod.batch_posteriors(sm, jobs, p, mode="posterior_match")
     assert len(got) == len(want)
     for g, w in zip(got, want):

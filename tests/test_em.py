@@ -114,9 +114,9 @@ def test_em_keep_emissions_when_not_training(tmp_path):
     np.testing.assert_allclose(hmm.emissions, initial.emissions, atol=1e-9)
 
 
-def test_expectation_step_data_parallel_matches_serial():
+def test_expectation_step_data_parallel_matches_serial(request):
     """The sharded-mesh expectation reduction must equal the single-device
-    result — same collectives code path as a real pod slice."""
+    result — same collectives code path as real multiple devices."""
     from cpecan_tpu.parallel.mesh import data_mesh
     from cpecan_tpu.models.state_machine import state_machine5
 
@@ -140,9 +140,10 @@ def test_expectation_step_data_parallel_matches_serial():
     np.testing.assert_allclose(parallel.emissions, serial.emissions, rtol=1e-4)
     assert parallel.likelihood == pytest.approx(serial.likelihood, rel=1e-5)
 
-    # the sharded path must also run the Pallas wavefront kernels (the
-    # TPU production configuration; interpreted here) with the same counts
+    # the sharded path must also run the fused kernels (the GPU
+    # configuration; interpreted here) with the same counts
     from cpecan_tpu.ops import fb_batch
+    request.getfixturevalue("interpreted_kernels")
     wavefront = Hmm(StateMachineType.fiveState)
     em_mod.expectation_step(sm, tasks, p, wavefront, mesh=mesh,
                             engine="wavefront")

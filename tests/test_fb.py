@@ -1,4 +1,4 @@
-"""Cross-checks of the TPU wavefront FB engine against the naive oracle and
+"""Cross-checks of the banded FB engine against the naive oracle and
 the reference's golden fixtures."""
 
 import numpy as np

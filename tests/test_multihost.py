@@ -1,6 +1,6 @@
 """Multi-host EM: 2 jax.distributed processes on the CPU backend must
 reproduce the single-process model — same collectives code path as a
-multi-host TPU pod (the reference ran its EM scatter on clusters via
+multi-host accelerator cluster (the reference ran its EM scatter on clusters via
 jobTree, cPecanEm.py:423)."""
 
 import os

@@ -197,102 +197,41 @@ def test_expectation_step_stream_route_matches(monkeypatch):
     assert streamed.likelihood == pytest.approx(serial.likelihood, rel=1e-5)
 
 
-@pytest.mark.parametrize("window", [64, 256])
-def test_segmented_wavefront_matches_scan_streaming(window):
-    """The segmented Pallas engine (ops/fb_segmented.py) must reproduce
-    the scan streaming engine (same checkpoint scheme, window bodies on
-    the wavefront kernels — interpreter mode on CPU)."""
-    from cpecan_tpu.ops import fb_segmented
-
-    x, y, band = _case()
-    sm = state_machine5()
-    W = max(8, band.frame_width())
-    ref, L = _two_pass(sm, x, y, band, "posterior_all", W)
-    got = fb_segmented.fb_pass_segmented(
-        sm.device_params(), encode(x), encode(y), band.offsets, band.widths,
-        len(x), len(y), False, False, "posterior_all", W, window)
-
-    np.testing.assert_allclose(got["mf"][: L + 1], ref["mf"][: L + 1],
-                               rtol=1e-4, atol=2e-5)
-    np.testing.assert_allclose(got["mb"][1: L + 1], ref["mb"][1: L + 1],
-                               rtol=1e-4, atol=2e-5)
-    np.testing.assert_allclose(got["total_raw"][1: L + 1],
-                               ref["total_raw"][1: L + 1],
-                               rtol=1e-4, atol=2e-5)
-    lf_ref = ref["log_fwd"] + np.sum(ref["mf"][: L + 1], dtype=np.float64)
-    lf_got = got["log_fwd"] + np.sum(got["mf"][: L + 1], dtype=np.float64)
-    assert lf_got == pytest.approx(lf_ref, rel=1e-6, abs=1e-4)
-    for key in ("post_match", "post_gap_x", "post_gap_y"):
-        vals, ks, js = got["post_entries"][key]
-        dense = np.zeros_like(ref[key])
-        dense[ks, js] = vals
-        np.testing.assert_allclose(dense[: L + 1], ref[key][: L + 1],
-                                   rtol=1e-3, atol=2e-5)
-
-
-@pytest.mark.parametrize("window", [64, 256])
-def test_segmented_wavefront_expectations_match(window):
-    """Segmented expectation mode (EM E-step over kernel windows with
-    exact carries + carry halo) vs the two-pass engine."""
-    from cpecan_tpu.ops import fb_segmented
-
-    x, y, band = _case(n=180, seed=9)
-    sm = state_machine5()
-    W = max(8, band.frame_width())
-    ref, L = _two_pass(sm, x, y, band, "expectation", W)
-    got = fb_segmented.fb_pass_segmented(
-        sm.device_params(), encode(x), encode(y), band.offsets, band.widths,
-        len(x), len(y), False, False, "expectation", W, window)
-    np.testing.assert_allclose(got["trans"], ref["trans"], rtol=1e-3,
-                               atol=1e-6)
-    np.testing.assert_allclose(got["emis"], ref["emis"], rtol=1e-3,
-                               atol=1e-6)
-    np.testing.assert_allclose(got["total_raw"][1: L + 1],
-                               ref["total_raw"][1: L + 1],
-                               rtol=1e-4, atol=2e-5)
-    np.testing.assert_allclose(got["mb"][1: L + 1], ref["mb"][1: L + 1],
-                               rtol=1e-4, atol=2e-5)
-
-
-def test_segmented_wavefront_forward_mode():
-    from cpecan_tpu.ops import fb_segmented
-
-    x, y, band = _case(n=150, seed=13)
-    sm = state_machine5()
-    W = max(8, band.frame_width())
-    ref, L = _two_pass(sm, x, y, band, "forward", W)
-    got = fb_segmented.fb_pass_segmented(
-        sm.device_params(), encode(x), encode(y), band.offsets, band.widths,
-        len(x), len(y), False, False, "forward", W, 64)
-    lf_ref = ref["log_fwd"] + np.sum(ref["mf"][: L + 1], dtype=np.float64)
-    lf_got = got["log_fwd"] + np.sum(got["mf"][: L + 1], dtype=np.float64)
-    assert lf_got == pytest.approx(lf_ref, rel=1e-6, abs=1e-5)
-
-
-def test_streaming_engine_dispatch(monkeypatch):
-    """CPECAN_TPU_STREAM_ENGINE=wavefront forces the segmented engine
-    through the public fb_pass_streaming entry point."""
-    x, y, band = _case(n=120, seed=17)
-    sm = state_machine5()
-    W = max(8, band.frame_width())
-    scan = _stream(sm, x, y, band, "posterior_match", W, 64)
-    assert fb_streaming.LAST_ENGINE == "scan"  # CPU default
-    monkeypatch.setenv("CPECAN_TPU_STREAM_ENGINE", "wavefront")
-    seg = _stream(sm, x, y, band, "posterior_match", W, 64)
-    assert fb_streaming.LAST_ENGINE == "wavefront"
-    v_ref, k_ref, j_ref = scan["post_entries"]["post_match"]
-    v_got, k_got, j_got = seg["post_entries"]["post_match"]
-    o_ref = np.lexsort((j_ref, k_ref))
-    o_got = np.lexsort((j_got, k_got))
-    np.testing.assert_array_equal(k_got[o_got], k_ref[o_ref])
-    np.testing.assert_array_equal(j_got[o_got], j_ref[o_ref])
-    np.testing.assert_allclose(v_got[o_got], v_ref[o_ref],
-                               rtol=2e-4, atol=1e-6)
-
-
 def test_window_rows_honors_config():
     p = PairwiseAlignmentParameters()
     assert fb_streaming.window_rows(p) == -(-p.minDiagsBetweenTraceBack // 8) * 8
     p2 = PairwiseAlignmentParameters(minDiagsBetweenTraceBack=200,
                                      traceBackDiagonals=300)
     assert fb_streaming.window_rows(p2) >= 302
+
+
+class _StubDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("stats,expect", [
+    ({"bytes_limit": 64 << 30, "bytes_in_use": 0}, 8 << 30),
+    ({"bytes_limit": 60 << 30}, (60 << 30) // 8),
+    ({"bytes_in_use": 5}, 1 << 30),
+    (None, 1 << 30),
+    ({"bytes_limit": 0}, 1 << 30),
+])
+def test_device_budget_from_stub_device(stats, expect):
+    assert fb_streaming.device_budget_bytes(_StubDevice(stats)) == expect
+
+
+@pytest.mark.parametrize("width", [41, 64])
+def test_should_stream_pads_to_block_width(monkeypatch, width):
+    """The streaming threshold counts the kernels' power-of-two block
+    width (41 and 64 slots both hold 64), not a fixed lane padding."""
+    rows = 10_000
+    need = 3 * (rows + 1) * 5 * 64 * 4
+    assert fb_streaming.resident_bytes(rows, width) == need
+    monkeypatch.setenv("CPECAN_TPU_STREAM_BUDGET", str(need))
+    assert not fb_streaming.should_stream(rows, width)
+    monkeypatch.setenv("CPECAN_TPU_STREAM_BUDGET", str(need - 1))
+    assert fb_streaming.should_stream(rows, width)

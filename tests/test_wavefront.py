@@ -1,10 +1,11 @@
-"""Parity tests: Pallas wavefront kernels vs the scan engine oracle.
+"""Parity tests: the fused GPU kernels vs the scan engine oracle.
 
-The wavefront kernels (ops/fb_wavefront.py) implement the identical
+The kernels (ops/fb_wavefront.py) implement the identical
 scaled-probability recurrence as ops/fb.py, so the scan engine serves as
-the numerical oracle. On the CPU test backend the kernels execute in
-Pallas interpreter mode — the same kernel code path that Mosaic compiles
-on TPU.
+the numerical oracle. On the CPU test backend the kernels execute in the
+Pallas interpreter (interpret=True) — the same kernel code that Triton
+compiles for the GPU — and a second set of tests lowers them for CUDA
+(Pallas -> Triton IR) without a card.
 """
 
 import numpy as np
@@ -66,7 +67,7 @@ def test_wavefront_matches_scan_engine(sm_factory, mode):
         params, *[jnp.asarray(a) for a in args], jnp.asarray(rl),
         jnp.asarray(rr), mode=mode, width=W)
     new = fb_wavefront.fb_pass_batch_wavefront(
-        params, *args, rl, rr, mode=mode, width=W)
+        params, *args, rl, rr, mode=mode, width=W, interpret=True)
 
     np.testing.assert_allclose(np.asarray(new["log_fwd"]),
                                np.asarray(ref["log_fwd"]),
@@ -123,82 +124,102 @@ def test_dispatch_scan_on_cpu():
         params, sx, "expectation", None, None) == "scan"
 
 
-def test_pick_tiles_envelope():
-    """(group, chunk) stay inside the active VMEM envelope counting the
-    128-lane padding of narrow bands, and shrink for the expectation
-    kernel's per-group accumulators."""
-    from cpecan_tpu.ops.fb_wavefront import pick_tiles, _envelope
-    for W in (8, 32, 64, 128, 256, 512):
-        for B in (1, 7, 64, 256, 1000):
-            for mode in ("posterior_match", "expectation", "forward"):
-                g, c = pick_tiles(B, W, 2048, 5, mode)
-                assert g * c * max(W, 128) <= _envelope(), (W, B, mode, g, c)
-                # the expectation kernel's half-chunk halo indexing needs
-                # chunk % 8; the posterior/forward grids only need the
-                # NORM_EVERY schedule alignment (commit 14f61e4)
-                q = 8 if mode == "expectation" else 4
-                assert c % q == 0 and c >= q, (W, B, mode, g, c)
-                assert g >= 1 and (g & (g - 1)) == 0
-                if mode == "expectation":
-                    assert g <= 64
+def _cuda_lowering(fn, *args):
+    """Lower `fn` for CUDA on this host: runs the Pallas -> Triton IR
+    lowering of every kernel (the GPU compiler itself runs only on a
+    card)."""
+    from jax import export
+
+    return export.export(
+        jax.jit(fn), platforms=["cuda"],
+        disabled_checks=[export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(*args).mlir_module()
 
 
-def test_shrink_tiles_heals_and_records(tmp_path, monkeypatch):
-    """A VMEM compile OOM shrinks (group, chunk) step by step down to the
-    (8, 8) floor, lowering the in-memory envelope; only confirm_tiles
-    (called after the shrunk config actually compiled) persists it, so a
-    transient OOM cannot permanently throttle the device kind."""
-    from cpecan_tpu.ops import fb_wavefront as wf
+@pytest.mark.parametrize("sm_factory", [state_machine5, state_machine3])
+@pytest.mark.parametrize("mode", fb_wavefront.MODES)
+def test_kernels_lower_for_cuda(sm_factory, mode):
+    params = sm_factory().device_params()
+    nz = fb_wavefront.nonzero_transitions(np.asarray(params["t"]))
+    B, P, W = 3, 64, 64
+    args = ((jnp.zeros((B, P), jnp.int32),) * 2
+            + (jnp.zeros((B, P + 1), jnp.int32),) * 2
+            + (jnp.zeros(B, jnp.int32),) * 2 + (jnp.zeros(B, bool),) * 2)
+    group, warps = fb_wavefront.tiles(W)
+    text = _cuda_lowering(
+        lambda *a: fb_wavefront._wavefront_jit(
+            params, *a, nz=nz, mode=mode, width=W, group=group, warps=warps,
+            interpret=False), *args)
+    assert text.count("xla.gpu.triton") == (1 if mode == "forward" else 2)
 
-    monkeypatch.setenv("CPECAN_TPU_TILE_CACHE",
-                       str(tmp_path / "tiles.json"))
-    wf._envelope_live.clear()
-    try:
-        g, c = 128, 64
-        seen = []
-        while True:
-            nxt = wf.shrink_tiles(g, c, 128)
-            if nxt is None:
-                break
-            g, c = nxt
-            seen.append((g, c))
-            assert wf._envelope() == g * c * 128
-        assert (g, c) == (8, 8)
-        assert len(seen) >= 6  # chunk halves first, then group
-        # un-confirmed shrinks do NOT persist: fresh state reloads default
-        wf._envelope_live.clear()
-        assert wf._envelope() == wf._ENVELOPE_DEFAULT
-        # confirmed shrinks persist and constrain later pick_tiles
-        wf.confirm_tiles(8, 8, 128)
-        wf._envelope_live.clear()
-        assert wf._envelope() == 8 * 8 * 128
-        g2, c2 = wf.pick_tiles(256, 128, 2048, 5, "posterior_match")
-        assert g2 * c2 * 128 <= 8 * 8 * 128
-    finally:
-        wf._envelope_live.clear()
+
+@pytest.mark.parametrize("width,expect", [
+    (1, 8), (8, 8), (9, 16), (41, 64), (64, 64), (65, 128), (1000, 1024)])
+def test_block_width_and_tiles(width, expect):
+    W = fb_wavefront.block_width(width)
+    assert W == expect
+    group, warps = fb_wavefront.tiles(W)
+    assert group >= 1 and (group & (group - 1)) == 0
+    assert 1 <= warps <= 8 and group * W >= 32 * min(warps, 2)
+
+
+_SELECT_CASES = [
+    # (on_gpu, engine, mode, width, mesh devices, expected)
+    (False, None, "posterior_match", 64, 1, "scan"),
+    (False, "scan", "expectation", 64, 1, "scan"),
+    (True, None, "posterior_match", 64, 1, "wavefront"),
+    (True, None, "expectation", 64, 1, "wavefront"),
+    (True, "wavefront", "forward", 8, 1, "wavefront"),
+    (True, "scan", "posterior_all", 64, 1, "scan"),
+    (True, None, "posterior_match", 2048, 1, "scan"),
+    (True, None, "expectation", 64, 2, "wavefront_sharded"),
+    (False, None, "expectation", 64, 2, "scan_sharded"),
+]
+
+
+@pytest.mark.parametrize("on_gpu,engine,mode,width,n_dev,expected",
+                         _SELECT_CASES)
+def test_engine_choice_per_platform(monkeypatch, on_gpu, engine, mode,
+                                    width, n_dev, expected):
+    from cpecan_tpu.parallel.mesh import data_mesh
+
+    monkeypatch.setattr(fb_batch, "_on_gpu", lambda: on_gpu)
+    monkeypatch.delenv("CPECAN_TPU_ENGINE", raising=False)
+    params = state_machine5().device_params()
+    sx = jnp.zeros((2, 8), jnp.int32)
+    mesh = data_mesh(n_dev) if n_dev > 1 else None
+    assert fb_batch._select_engine(params, sx, mode, mesh, None, engine,
+                                   width) == expected
+
+
+@pytest.mark.parametrize("engine", ["wavefront", "interpret", "tpu"])
+def test_engine_choice_refuses_off_gpu(monkeypatch, engine):
+    """No engine value reaches the kernels (or an interpreter) off a GPU."""
+    monkeypatch.setattr(fb_batch, "_on_gpu", lambda: False)
+    params = state_machine5().device_params()
+    with pytest.raises(ValueError):
+        fb_batch._select_engine(params, jnp.zeros((2, 8), jnp.int32),
+                                "posterior_match", None, None, engine, 64)
 
 
 @pytest.mark.parametrize("mode", ["posterior_match", "expectation"])
 def test_batch_slicing_matches_unsliced(monkeypatch, mode):
-    """When the whole-batch F_all intermediate would exceed the HBM
-    budget, the dispatcher runs the batch in group-aligned slices;
-    outputs must match the unsliced call exactly (same kernel, same
-    shapes per slice)."""
+    """Batches whose flat kernel buffers would overflow int32 offsets run
+    in group-aligned slices; outputs must match the unsliced call."""
     rng = np.random.default_rng(7)
     B = 6
     args = _random_batch(rng, B=B, W=32)
     rl = np.zeros(B, bool)
     rr = np.zeros(B, bool)
     params = state_machine5().device_params()
-
     whole = fb_wavefront.fb_pass_batch_wavefront(
-        params, *args, rl, rr, mode=mode, width=32)
-    # budget of one pair's F_all: forces per-group slices
-    monkeypatch.setattr(fb_wavefront, "_F_ALL_BUDGET",
-                        (args[2].shape[1] + 64) * 5 * 32 * 4)
+        params, *args, rl, rr, mode=mode, width=32, interpret=True)
+    # room for two pairs' F rows per call: three slices
+    per_pair = args[2].shape[1] * 5 * 32
+    monkeypatch.setattr(fb_wavefront, "_MAX_INDEX", 2 * per_pair)
     sliced = fb_wavefront.fb_pass_batch_wavefront(
-        params, *args, rl, rr, mode=mode, width=32)
-
+        params, *args, rl, rr, mode=mode, width=32, interpret=True)
+    assert set(sliced) == set(whole)
     for k in whole:
         np.testing.assert_allclose(np.asarray(sliced[k]),
                                    np.asarray(whole[k]),
